@@ -1,14 +1,14 @@
-// Native kd-tree builder for simd_raytracer_tpu.
+// Native kd-tree builder for simd_raytracer.
 //
 // Same topology as the reference build (see
-// /root/reference/include/raytracer/render/accel/kd_tree_simd.hpp:146-185
+// reference: include/raytracer/render/accel/kd_tree_simd.hpp:146-185
 // for the behavior being reproduced — this is a fresh implementation):
 // midpoint split cycling axis = depth % 3 with degenerate-axis skip,
 // triangles overlapping both half-boxes duplicated into both children,
 // leaf when depth == max_depth or count <= max_leaf.
 //
 // Output layout is the flattened-array form consumed by the JAX wavefront
-// traversal (simd_raytracer_tpu/accel/traverse.py) and is bit-identical to
+// traversal (simd_raytracer/accel/traverse.py) and is bit-identical to
 // the NumPy builder in accel/build.py (preorder node ids, same float32
 // arithmetic, leaf rows padded with -1 to a multiple-of-8 cap).
 

@@ -2,7 +2,7 @@
 // plus crtscene field extraction behind a C ABI.
 //
 // Plays the role the simdjson-based DOM loader plays in the reference
-// (/root/reference/include/raytracer/io/json/loader.hpp:236-265 behavior),
+// (reference: include/raytracer/io/json/loader.hpp:236-265 behavior),
 // including its quirks, which are re-implemented (not translated) here:
 //   * bucket_size optional, default 64,
 //   * a diffuse material with a STRING albedo promotes to a texture
@@ -240,7 +240,7 @@ struct Parser {
 
 // --------------------------- crtscene --------------------------------
 
-// Material tags matching simd_raytracer_tpu/models/scene.py.
+// Material tags matching simd_raytracer/models/scene.py.
 enum { MAT_DIFFUSE = 0, MAT_REFLECTIVE, MAT_REFRACTIVE, MAT_CONSTANT,
        MAT_TEXTURE };
 // Texture tags.

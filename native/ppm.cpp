@@ -1,6 +1,6 @@
 // Native ASCII P3 PPM encoder, byte-compatible with both
-// simd_raytracer_tpu/utils/ppm.py and the reference writer's format
-// (/root/reference/include/raytracer/io/image/ppm.hpp:7-25 behavior):
+// simd_raytracer/utils/ppm.py and the reference writer's format
+// (reference: include/raytracer/io/image/ppm.hpp:7-25 behavior):
 // header "P3\nW H\n255\n", then one image row per line with "R G B\t" per
 // pixel and channel = uint8(255.999f * clamp(c, 0, 1)) (truncating cast).
 

@@ -28,9 +28,10 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 from jax.experimental.shard_map import shard_map
 
-from simd_raytracer_tpu import RenderConfig, parse_scene_file
-from simd_raytracer_tpu.ops.grad import pixel_loss, split_params
-from simd_raytracer_tpu.parallel import sharding as sh
+from simd_raytracer import RenderConfig
+from simd_raytracer.models.scenegen import load_scene
+from simd_raytracer.ops.grad import pixel_loss, split_params
+from simd_raytracer.parallel import sharding as sh
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "mesh", "lr"))
@@ -57,9 +58,7 @@ def main():
     shadow = bool(int(sys.argv[2])) if len(sys.argv) > 2 else True
     depth = int(sys.argv[3]) if len(sys.argv) > 3 else 3
     mode = sys.argv[4] if len(sys.argv) > 4 else "roulette"
-    scene = parse_scene_file(
-        "/root/reference/scenes/hw15/scene2.crtscene").replace(
-        height=16, width=16)
+    scene = load_scene("room", height=16, width=16)
     cfg = RenderConfig(chunk_size=64, max_ray_depth=depth,
                        bounce_mode=mode, bounce_skip=True,
                        compact_factor=compact, shadow_compact=shadow)

@@ -1,7 +1,7 @@
 """Scalar NumPy oracle: a direct, recursive re-implementation of the
 reference renderer's semantics (render.hpp color_hit/is_occluded,
 kd_tree_simd smooth-normal reconstruction, texture samplers), used as the
-golden reference for the TPU wavefront renderer since the C++ binary cannot
+golden reference for the wavefront renderer since the C++ binary cannot
 be built offline (its CMake FetchContent needs network).
 
 Intentionally slow and simple — per-pixel Python recursion with the
@@ -14,12 +14,12 @@ import math
 
 import numpy as np
 
-from simd_raytracer_tpu.config import RenderConfig
-from simd_raytracer_tpu.models.scene import (MAT_CONSTANT, MAT_DIFFUSE,
-                                             MAT_REFLECTIVE, MAT_REFRACTIVE,
-                                             MAT_TEXTURE, TEX_ALBEDO,
-                                             TEX_BITMAP, TEX_CHECKER,
-                                             TEX_EDGES, Scene)
+from simd_raytracer.config import RenderConfig
+from simd_raytracer.models.scene import (MAT_CONSTANT, MAT_DIFFUSE,
+                                         MAT_REFLECTIVE, MAT_REFRACTIVE,
+                                         MAT_TEXTURE, TEX_ALBEDO,
+                                         TEX_BITMAP, TEX_CHECKER,
+                                         TEX_EDGES, Scene)
 
 
 class NumpyScene:

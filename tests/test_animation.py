@@ -1,22 +1,22 @@
 """Animation rendering: camera paths -> frame sequences
 (utils/animation.py; the capability behind the reference's published
-orbit video, reference README.md:60-65 / outputs/dragon_slow_load.mp4)."""
+orbit video, reference README.md:60-65)."""
 
 import numpy as np
+import pytest
 
-from conftest import SCENES
-from simd_raytracer_tpu import RenderConfig, parse_scene_file
-from simd_raytracer_tpu.utils.animation import (dolly_path, orbit_path,
-                                                render_animation)
+from simd_raytracer import RenderConfig, parse_scene_file
+from simd_raytracer.utils.animation import (dolly_path, orbit_path,
+                                            render_animation)
 
 
-def _scene():
-    return parse_scene_file(str(SCENES / "hw11/scene1.crtscene")).replace(
+@pytest.fixture
+def scene(scenes):
+    return parse_scene_file(str(scenes / "mixed.crtscene")).replace(
         height=10, width=12)
 
 
-def test_orbit_path_preserves_distance_and_closes():
-    scene = _scene()
+def test_orbit_path_preserves_distance_and_closes(scene):
     center = np.asarray(scene.vertices).mean(axis=0)
     frames = list(orbit_path(scene, n_frames=8))
     assert len(frames) == 8
@@ -33,8 +33,7 @@ def test_orbit_path_preserves_distance_and_closes():
                                np.asarray(scene.cam_pos), atol=1e-6)
 
 
-def test_render_animation_writes_distinct_frames(tmp_path):
-    scene = _scene()
+def test_render_animation_writes_distinct_frames(tmp_path, scene):
     cfg = RenderConfig(chunk_size=256, max_ray_depth=1)
     frames = render_animation(orbit_path(scene, n_frames=3), cfg,
                               out_dir=str(tmp_path), prefix="orbit")
@@ -49,8 +48,7 @@ def test_render_animation_writes_distinct_frames(tmp_path):
     assert head[0] == "P3" and head[1] == "12" and head[2] == "10"
 
 
-def test_dolly_path_moves_along_view_axis():
-    scene = _scene()
+def test_dolly_path_moves_along_view_axis(scene):
     frames = list(dolly_path(scene, n_frames=3, total_dist=1.0))
     p0 = np.asarray(frames[0].cam_pos)
     p2 = np.asarray(frames[2].cam_pos)

@@ -10,10 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from simd_raytracer_tpu.ops.intersect import BIG, mt_pairs, mt_select
-from simd_raytracer_tpu.ops.intersect_mxu import (mt_select_fast,
-                                                  mt_select_mxu)
-from simd_raytracer_tpu.ops.intersect_pallas import mt_select_pallas
+from simd_raytracer.ops.intersect import BIG, mt_pairs, mt_select
 
 EPS = 1e-6
 
@@ -51,9 +48,6 @@ def _brute(o, d, v0, e1, e2, tmax, mask):
 
 BACKENDS = {
     "jnp": mt_select,
-    "fast": mt_select_fast,
-    "mxu": mt_select_mxu,
-    "pallas": mt_select_pallas,
 }
 
 
@@ -71,7 +65,7 @@ def test_any_hit_matches_brute_every_backend():
 def test_windowed_closest_matches_brute():
     o, d, v0, e1, e2, tmax, mask = _setup(seed=1)
     occ_ref, idx_ref = _brute(o, d, v0, e1, e2, tmax, mask)
-    for name in ("jnp", "pallas"):      # bitwise-identical formulations
+    for name in ("jnp",):               # the classic formulation
         idx, hit = BACKENDS[name](o, d, v0, e1, e2, EPS, False,
                                   tri_mask=mask, t_max=tmax)
         np.testing.assert_array_equal(np.asarray(hit),
@@ -96,18 +90,17 @@ def test_window_inclusive_and_zero():
             assert bool(hit[0]) == expect, (name, w)
 
 
-def test_sweep_and_kdtree_any_hit_on_scene(tmp_path):
+def test_sweep_and_kdtree_any_hit_on_scene(scenes, tmp_path):
     # Backends that need an accel: drive them through occluded() on a
     # real scene and pin fast-mode occlusion to the jnp backend's.
     import dataclasses
-    from simd_raytracer_tpu import RenderConfig, parse_scene_file
-    from simd_raytracer_tpu.accel.build import build_kdtree_for_scene
-    from simd_raytracer_tpu.accel.sweep import build_sweep_for_scene
-    from simd_raytracer_tpu.models.scene import derive_geometry
-    from simd_raytracer_tpu.ops.shade import occluded
+    from simd_raytracer import RenderConfig, parse_scene_file
+    from simd_raytracer.accel.build import build_kdtree_for_scene
+    from simd_raytracer.accel.sweep import build_sweep_for_scene
+    from simd_raytracer.models.scene import derive_geometry
+    from simd_raytracer.ops.shade import occluded
 
-    scene = parse_scene_file(
-        "/root/reference/scenes/hw09/scene1.crtscene")
+    scene = parse_scene_file(str(scenes / "diffuse.crtscene"))
     geom = derive_geometry(scene)
     k = jax.random.split(jax.random.PRNGKey(2), 3)
     n = 256
@@ -118,34 +111,10 @@ def test_sweep_and_kdtree_any_hit_on_scene(tmp_path):
 
     base = RenderConfig(occlusion_mode="fast", intersector="jnp")
     ref = occluded(o, d, tmax, scene, geom, base)
-    for name, accel in [("sweep", build_sweep_for_scene(scene)),
-                        ("kdtree", build_kdtree_for_scene(scene)),
-                        ("fast", None), ("pallas", None)]:
+    for name, accel in [("sweep", build_sweep_for_scene(scene,
+                                                        interpret=True)),
+                        ("kdtree", build_kdtree_for_scene(scene))]:
         cfg = dataclasses.replace(base, intersector=name)
         got = occluded(o, d, tmax, scene, geom, cfg, accel=accel)
         np.testing.assert_array_equal(np.asarray(got), np.asarray(ref),
                                       err_msg=name)
-
-
-def test_alive_first_order_matches_stable_argsort():
-    from simd_raytracer_tpu.ops.compact import alive_first_order
-    for seed, n in [(0, 64), (1, 513), (2, 4096)]:
-        mask = jax.random.bernoulli(jax.random.PRNGKey(seed), 0.3, (n,))
-        ref = jnp.argsort(~mask, stable=True)
-        got = alive_first_order(mask)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-    # all-dead and all-alive edges
-    for mask in (jnp.zeros(17, bool), jnp.ones(17, bool)):
-        np.testing.assert_array_equal(
-            np.asarray(alive_first_order(mask)),
-            np.asarray(jnp.argsort(~mask, stable=True)))
-
-
-def test_scatter_rows_matches_row_scatter():
-    from simd_raytracer_tpu.ops.compact import scatter_rows
-    k = jax.random.PRNGKey(3)
-    vals = jax.random.uniform(k, (100, 3))
-    idx = jax.random.permutation(k, 4096)[:100]
-    ref = (jnp.zeros((4096, 3)).at[:, 2].set(-1.0)).at[idx].set(vals)
-    got = scatter_rows(4096, idx, vals, fills=(0.0, 0.0, -1.0))
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))

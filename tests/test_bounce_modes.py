@@ -1,23 +1,18 @@
-"""Roulette bounce mode (unbiased single-child sampling) and the MXU
-intersector backend vs the exact split/VPU paths."""
+"""Roulette bounce mode (unbiased single-child sampling) vs the exact
+split path."""
 
 import numpy as np
-import jax.numpy as jnp
 
-from conftest import SCENES
-from simd_raytracer_tpu import RenderConfig, parse_scene_file, render_frame
-from simd_raytracer_tpu.models.scene import derive_geometry
-from simd_raytracer_tpu.ops.intersect import mt_select
-from simd_raytracer_tpu.ops.intersect_mxu import mt_select_mxu
+from simd_raytracer import RenderConfig, parse_scene_file, render_frame
 
 
-def test_roulette_matches_split_in_expectation():
+def test_roulette_matches_split_in_expectation(scenes):
     # hw11/scene2 has a refractive sphere: roulette stochastically picks
     # reflect/refract per bounce; averaged over many spp the image must
     # converge to the deterministic split render (unbiased estimator).
     # Both renders use the SAME spp/chunking so the pixel jitter sequence
     # is identical — the only difference is the roulette coin.
-    scene = parse_scene_file(str(SCENES / "hw11/scene2.crtscene")).replace(
+    scene = parse_scene_file(str(scenes / "glass.crtscene")).replace(
         height=12, width=16)
     spp = 64
     split = np.asarray(render_frame(
@@ -35,10 +30,10 @@ def test_roulette_matches_split_in_expectation():
     assert err.mean() < 0.03, float(err.mean())
 
 
-def test_roulette_identical_when_no_branching():
+def test_roulette_identical_when_no_branching(scenes):
     # All-diffuse scene with gi=0: every ray has at most one child, so
     # roulette IS split (no coin ever matters) -> bitwise identical.
-    scene = parse_scene_file(str(SCENES / "hw09/scene1.crtscene")).replace(
+    scene = parse_scene_file(str(scenes / "diffuse.crtscene")).replace(
         height=16, width=20)
     a = np.asarray(render_frame(
         scene, RenderConfig(chunk_size=512, max_ray_depth=3)))
@@ -46,78 +41,3 @@ def test_roulette_identical_when_no_branching():
         scene, RenderConfig(chunk_size=512, max_ray_depth=3,
                             bounce_mode="roulette")))
     assert np.array_equal(a, b)
-
-
-def test_fast_select_matches_vpu():
-    from simd_raytracer_tpu.ops.intersect_mxu import mt_select_fast
-
-    scene = parse_scene_file(str(SCENES / "hw11/scene8.crtscene"))
-    geom = derive_geometry(scene)
-    rng = np.random.default_rng(2)
-    r = 1024
-    o = np.tile(np.asarray(scene.cam_pos), (r, 1)).astype(np.float32)
-    o[r // 2:] += rng.normal(scale=2.0, size=(r // 2, 3)).astype(np.float32)
-    d = rng.normal(size=(r, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    o, d = jnp.asarray(o), jnp.asarray(d)
-    for cull in (True, False):
-        bi, bh = mt_select(o, d, geom.v0, geom.e1, geom.e2, 1e-6, cull,
-                           geom.tri_valid)
-        fi, fh = mt_select_fast(o, d, geom.v0, geom.e1, geom.e2, 1e-6,
-                                cull, geom.tri_valid)
-        assert (np.asarray(bh) == np.asarray(fh)).mean() > 0.999
-        both = np.asarray(bh) & np.asarray(fh)
-        assert (np.asarray(bi)[both] == np.asarray(fi)[both]).mean() > 0.999
-
-
-def test_fast_render_matches_jnp():
-    scene = parse_scene_file(str(SCENES / "hw11/scene1.crtscene")).replace(
-        height=16, width=20)
-    a = np.asarray(render_frame(
-        scene, RenderConfig(chunk_size=2048, max_ray_depth=3,
-                            samples_per_pixel=4)))
-    b = np.asarray(render_frame(
-        scene, RenderConfig(chunk_size=2048, max_ray_depth=3,
-                            samples_per_pixel=4, intersector="fast")))
-    scale = np.maximum(1.0, np.abs(a))
-    assert (np.abs(a - b) <= 2e-3 * scale).mean() > 0.99
-
-
-def test_mxu_select_matches_vpu():
-    scene = parse_scene_file(str(SCENES / "hw11/scene8.crtscene"))
-    geom = derive_geometry(scene)
-    rng = np.random.default_rng(1)
-    r = 1024
-    o = np.tile(np.asarray(scene.cam_pos), (r, 1)).astype(np.float32)
-    o[r // 2:] += rng.normal(scale=2.0, size=(r // 2, 3)).astype(np.float32)
-    d = rng.normal(size=(r, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    o, d = jnp.asarray(o), jnp.asarray(d)
-    for cull in (True, False):
-        bi, bh = mt_select(o, d, geom.v0, geom.e1, geom.e2, 1e-6, cull,
-                           geom.tri_valid)
-        mi, mh = mt_select_mxu(o, d, geom.v0, geom.e1, geom.e2, 1e-6, cull,
-                               geom.tri_valid)
-        # On CPU (true f32 matmul) agreement is exact; on TPU the
-        # HIGHEST-precision matmul may flip near-tie winners on a few rays.
-        agree = (np.asarray(bh) == np.asarray(mh)).mean()
-        assert agree > 0.999, agree
-        both = np.asarray(bh) & np.asarray(mh)
-        assert (np.asarray(bi)[both] == np.asarray(mi)[both]).mean() > 0.999
-
-
-def test_mxu_render_matches_jnp():
-    # spp=4 jitter avoids sampling pixel centers exactly on shared
-    # triangle edges, where the two formulations' last-ulp differences
-    # legitimately flip tied winners (centered spp=1 on this symmetric
-    # scene puts ~4% of rays exactly on u=0/v=0 boundaries).
-    scene = parse_scene_file(str(SCENES / "hw11/scene1.crtscene")).replace(
-        height=16, width=20)
-    a = np.asarray(render_frame(
-        scene, RenderConfig(chunk_size=2048, max_ray_depth=3,
-                            samples_per_pixel=4)))
-    b = np.asarray(render_frame(
-        scene, RenderConfig(chunk_size=2048, max_ray_depth=3,
-                            samples_per_pixel=4, intersector="mxu")))
-    scale = np.maximum(1.0, np.abs(a))
-    assert (np.abs(a - b) <= 2e-3 * scale).mean() > 0.99

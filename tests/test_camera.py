@@ -3,14 +3,13 @@
 import numpy as np
 import pytest
 
-from conftest import SCENES
-from simd_raytracer_tpu import RenderConfig, parse_scene_file, render_frame
-from simd_raytracer_tpu.models import camera as cam
+from simd_raytracer import RenderConfig, parse_scene_file, render_frame
+from simd_raytracer.models import camera as cam
 
 
 @pytest.fixture(scope="module")
-def scene():
-    return parse_scene_file(str(SCENES / "hw11/scene1.crtscene")).replace(
+def scene(scenes):
+    return parse_scene_file(str(scenes / "mixed.crtscene")).replace(
         height=10, width=12)
 
 
@@ -44,8 +43,8 @@ def test_dolly_moves_along_view_axis(scene):
 
 
 def test_orbit_animation_renders(tmp_path, scene):
-    from simd_raytracer_tpu.utils.animation import (orbit_path,
-                                                    render_animation)
+    from simd_raytracer.utils.animation import (orbit_path,
+                                                render_animation)
 
     cfg = RenderConfig(chunk_size=128, max_ray_depth=1)
     frames = render_animation(orbit_path(scene, 3), cfg,

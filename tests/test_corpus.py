@@ -1,43 +1,25 @@
-"""Whole-corpus smoke test: every loadable reference scene parses and
-renders finite, non-degenerate output at tiny resolution.
+"""Stand-in corpus smoke test: every generated scene parses and renders
+finite, non-degenerate output at tiny resolution, and scene files that
+lack a key the reference loader requires are rejected.
 
-SURVEY.md §3.5: scenes before hw09 predate materials and the reference
-loader itself would reject them (loader.hpp:151,256), so hw09-hw15 is the
-loadable corpus."""
+The reference rejects scenes missing any of settings/camera/lights/
+materials/objects: simdjson DOM iteration over a missing field throws
+(loader.hpp:246,256,260); scenes before hw09 predate materials."""
 
-import pathlib
+import json
 
 import numpy as np
 import pytest
 
-from conftest import SCENES
-from simd_raytracer_tpu import RenderConfig, parse_scene_file, render_frame
+from simd_raytracer import RenderConfig, parse_scene_file, render_frame
+from simd_raytracer.models.scenegen import SMALL, scene_doc
 
-import json
-
-REQUIRED = {"settings", "camera", "lights", "materials", "objects"}
+REQUIRED = ("settings", "camera", "lights", "materials", "objects")
 
 
-def _has_required(p: pathlib.Path) -> bool:
-    # The reference rejects scenes missing any of these: simdjson DOM
-    # iteration over a missing field throws (loader.hpp:246,256,260), so
-    # e.g. hw09/scene0 (no lights) and hw15/scene0 (no materials) are
-    # unloadable there too.
-    return REQUIRED <= set(json.load(open(p)).keys())
-
-
-ALL = sorted(
-    p for hw in ("hw09", "hw10", "hw11", "hw12", "hw13", "hw14", "hw15")
-    if (SCENES / hw).exists()
-    for p in (SCENES / hw).glob("*.crtscene")) if SCENES.exists() else []
-LOADABLE = [p for p in ALL if _has_required(p)]
-UNLOADABLE = [p for p in ALL if not _has_required(p)]
-
-
-@pytest.mark.parametrize(
-    "path", LOADABLE, ids=[f"{p.parent.name}/{p.name}" for p in LOADABLE])
-def test_scene_loads_and_renders(path):
-    scene = parse_scene_file(str(path))
+@pytest.mark.parametrize("name", SMALL)
+def test_scene_loads_and_renders(scenes, name):
+    scene = parse_scene_file(str(scenes / f"{name}.crtscene"))
     assert scene.num_triangles >= 1
     assert scene.height > 0 and scene.width > 0
     small = scene.replace(height=6, width=8)
@@ -45,23 +27,27 @@ def test_scene_loads_and_renders(path):
     # all same-shaped scenes.
     cfg = RenderConfig(chunk_size=64, max_ray_depth=1)
     img = np.asarray(render_frame(small, cfg))
-    assert np.isfinite(img).all(), path
-    assert (img >= 0).all(), path
+    assert np.isfinite(img).all(), name
+    assert (img >= 0).all(), name
+    assert img.std() > 0, name
 
 
-def test_pre_material_scenes_rejected():
-    # hw07/hw08 lack `materials` -> loader must raise like the reference
-    # (simdjson DOM throw at loader.hpp:256).
-    legacy = sorted((SCENES / "hw07").glob("*.crtscene"))
-    if not legacy:
-        pytest.skip("no hw07 scenes")
+def _without(tmp_path, key):
+    doc, _ = scene_doc("diffuse")
+    del doc[key]
+    path = tmp_path / f"no_{key}.crtscene"
+    path.write_text(json.dumps(doc))
+    return str(path)
+
+
+def test_pre_material_scenes_rejected(tmp_path):
+    # hw07/hw08-style scenes lack `materials` -> the loader must raise
+    # like the reference (simdjson DOM throw at loader.hpp:256).
     with pytest.raises(ValueError):
-        parse_scene_file(str(legacy[0]))
+        parse_scene_file(_without(tmp_path, "materials"))
 
 
-@pytest.mark.parametrize(
-    "path", UNLOADABLE,
-    ids=[f"{p.parent.name}/{p.name}" for p in UNLOADABLE])
-def test_incomplete_scenes_rejected(path):
+@pytest.mark.parametrize("key", REQUIRED)
+def test_incomplete_scenes_rejected(tmp_path, key):
     with pytest.raises(ValueError):
-        parse_scene_file(str(path))
+        parse_scene_file(_without(tmp_path, key))

@@ -1,4 +1,4 @@
-"""Golden-image tests: wavefront TPU renderer vs the scalar NumPy oracle
+"""Golden-image tests: the wavefront renderer vs the scalar NumPy oracle
 (tests/oracle.py replicates the C++ reference semantics; SURVEY.md §4).
 
 Rendered at tiny resolutions so the per-pixel recursive oracle stays cheap.
@@ -10,13 +10,12 @@ import numpy as np
 import pytest
 
 import oracle
-from conftest import SCENES
-from simd_raytracer_tpu import RenderConfig, parse_scene_file, render_frame
+from simd_raytracer import RenderConfig, parse_scene_file, render_frame
 
 
-def compare(scene_rel, h, w, cfg=None, max_bad_frac=0.02, atol=2e-3):
+def compare(scenes, name, h, w, cfg=None, max_bad_frac=0.02, atol=2e-3):
     cfg = cfg or RenderConfig(chunk_size=1024)
-    scene = parse_scene_file(str(SCENES / scene_rel))
+    scene = parse_scene_file(str(scenes / f"{name}.crtscene"))
     scene = scene.replace(height=h, width=w)
     got = np.asarray(render_frame(scene, cfg))
     want = oracle.render(scene, cfg, res=(h, w))
@@ -25,45 +24,45 @@ def compare(scene_rel, h, w, cfg=None, max_bad_frac=0.02, atol=2e-3):
     bad = np.abs(got - want) > (atol * scale)
     bad_frac = bad.any(axis=-1).mean()
     assert bad_frac <= max_bad_frac, (
-        f"{scene_rel}: {bad_frac:.3%} pixels differ; "
+        f"{name}: {bad_frac:.3%} pixels differ; "
         f"max abs diff {np.abs(got - want).max():.4f}")
 
 
-def test_diffuse_simple():
-    compare("hw09/scene1.crtscene", 24, 32)
+def test_diffuse_simple(scenes):
+    compare(scenes, "diffuse", 24, 32)
 
 
-def test_diffuse_room():
-    compare("hw11/scene0.crtscene", 24, 32)
+def test_diffuse_room(scenes):
+    compare(scenes, "diffuse_room", 24, 32)
 
 
-def test_refractive_simple():
+def test_refractive_simple(scenes):
     # 3% budget: refraction amplifies sub-ulp direction differences into
     # discrete winner flips at the sphere silhouette (17/768 pixels on
     # CPU, all background-vs-object or swapped refraction targets).
-    compare("hw11/scene2.crtscene", 24, 32, max_bad_frac=0.03)
+    compare(scenes, "glass", 24, 32, max_bad_frac=0.03)
 
 
-def test_refractive_mid():
-    compare("hw11/scene3.crtscene", 20, 26)
+def test_refractive_mid(scenes):
+    compare(scenes, "prism", 20, 26)
 
 
-def test_textures_all_four():
-    compare("hw12/scene4.crtscene", 24, 40)
+def test_textures_all_four(scenes):
+    compare(scenes, "textures", 24, 40)
 
 
-def test_hw15_scene2_full_materials():
-    compare("hw15/scene2.crtscene", 24, 24)
+def test_hw15_scene2_full_materials(scenes):
+    compare(scenes, "room", 24, 24)
 
 
-def test_reflective():
-    compare("hw09/scene4.crtscene", 20, 26)
+def test_reflective(scenes):
+    compare(scenes, "mirror", 20, 26)
 
 
-def test_march_occlusion_matches_fast():
+def test_march_occlusion_matches_fast(scenes):
     cfg_fast = RenderConfig(chunk_size=1024, occlusion_mode="fast")
     cfg_march = RenderConfig(chunk_size=1024, occlusion_mode="march")
-    scene = parse_scene_file(str(SCENES / "hw11/scene2.crtscene"))
+    scene = parse_scene_file(str(scenes / "glass.crtscene"))
     scene = scene.replace(height=20, width=26)
     a = np.asarray(render_frame(scene, cfg_fast))
     b = np.asarray(render_frame(scene, cfg_march))
@@ -71,9 +70,9 @@ def test_march_occlusion_matches_fast():
     assert (np.abs(a - b) <= 2e-3 * scale).mean() > 0.99
 
 
-def test_determinism():
+def test_determinism(scenes):
     cfg = RenderConfig(chunk_size=512)
-    scene = parse_scene_file(str(SCENES / "hw11/scene1.crtscene"))
+    scene = parse_scene_file(str(scenes / "mixed.crtscene"))
     scene = scene.replace(height=16, width=16)
     a = np.asarray(render_frame(scene, cfg))
     b = np.asarray(render_frame(scene, cfg))

@@ -14,10 +14,9 @@ import numpy as np
 import pytest
 from jax import enable_x64
 
-from conftest import SCENES
-from simd_raytracer_tpu import RenderConfig, parse_scene_file
-from simd_raytracer_tpu.ops.grad import (merge_params, pixel_loss,
-                                         split_params, train_step)
+from simd_raytracer import RenderConfig, parse_scene_file
+from simd_raytracer.ops.grad import (merge_params, pixel_loss,
+                                     split_params, train_step)
 
 
 def to_x64(tree):
@@ -26,9 +25,9 @@ def to_x64(tree):
         tree)
 
 
-def setup(scene_rel="hw11/scene1.crtscene", h=12, w=16, cfg=None):
+def setup(scenes, name="mixed", h=12, w=16, cfg=None):
     cfg = cfg or RenderConfig(chunk_size=h * w, max_ray_depth=3)
-    scene = parse_scene_file(str(SCENES / scene_rel)).replace(
+    scene = parse_scene_file(str(scenes / f"{name}.crtscene")).replace(
         height=h, width=w)
     scene = to_x64(scene)
     params, skeleton = split_params(scene)
@@ -57,32 +56,32 @@ def fd_check(params, skeleton, cfg, ids, target, key, name, flat_index,
     return g_val
 
 
-def test_albedo_gradient_matches_fd():
+def test_albedo_gradient_matches_fd(scenes):
     with enable_x64():
-        params, skeleton, cfg, ids, key = setup()
+        params, skeleton, cfg, ids, key = setup(scenes)
         target = jnp.zeros((ids.shape[0], 3))
         # albedo of material 0 (diffuse), red channel
         fd_check(params, skeleton, cfg, ids, target, key, "mat_albedo", 0)
 
 
-def test_light_intensity_gradient_matches_fd():
+def test_light_intensity_gradient_matches_fd(scenes):
     with enable_x64():
-        params, skeleton, cfg, ids, key = setup()
+        params, skeleton, cfg, ids, key = setup(scenes)
         target = jnp.zeros((ids.shape[0], 3))
         fd_check(params, skeleton, cfg, ids, target, key,
                  "light_intensity", 0, h=1e-4)
 
 
-def test_light_position_gradient_matches_fd():
+def test_light_position_gradient_matches_fd(scenes):
     with enable_x64():
-        params, skeleton, cfg, ids, key = setup()
+        params, skeleton, cfg, ids, key = setup(scenes)
         target = jnp.zeros((ids.shape[0], 3))
         fd_check(params, skeleton, cfg, ids, target, key, "light_pos", 1)
 
 
-def test_vertex_gradient_matches_fd():
+def test_vertex_gradient_matches_fd(scenes):
     with enable_x64():
-        params, skeleton, cfg, ids, key = setup()
+        params, skeleton, cfg, ids, key = setup(scenes)
         target = jnp.zeros((ids.shape[0], 3))
         # Nudge a vertex along z (depth).  FD step must dodge discrete
         # boundaries: at h=1e-5 this scene crosses an argmin-winner flip
@@ -93,18 +92,18 @@ def test_vertex_gradient_matches_fd():
                  h=1e-4, rtol=2e-3)
 
 
-def test_background_gradient_matches_fd():
+def test_background_gradient_matches_fd(scenes):
     with enable_x64():
-        params, skeleton, cfg, ids, key = setup()
+        params, skeleton, cfg, ids, key = setup(scenes)
         target = jnp.zeros((ids.shape[0], 3))
         fd_check(params, skeleton, cfg, ids, target, key, "background", 1)
 
 
-def test_ior_gradient_matches_fd():
+def test_ior_gradient_matches_fd(scenes):
     # hw11/scene1 has a refractive material; IOR gradients flow through
     # the Snell/Fresnel math (render.hpp:252-301 equivalents).
     with enable_x64():
-        params, skeleton, cfg, ids, key = setup()
+        params, skeleton, cfg, ids, key = setup(scenes)
         target = jnp.zeros((ids.shape[0], 3))
         mat_tags = np.asarray(skeleton.mat_tag)
         refr = int(np.where(mat_tags == 2)[0][0])
@@ -112,10 +111,10 @@ def test_ior_gradient_matches_fd():
                  rtol=2e-3)
 
 
-def test_texture_param_gradients_flow():
+def test_texture_param_gradients_flow(scenes):
     # hw12/scene4 exercises all four texture types; texel/uv/color grads.
     with enable_x64():
-        params, skeleton, cfg, ids, key = setup("hw12/scene4.crtscene",
+        params, skeleton, cfg, ids, key = setup(scenes, "textures",
                                                 h=10, w=16)
         target = jnp.zeros((ids.shape[0], 3))
         g = jax.jit(jax.grad(lambda p: pixel_loss(
@@ -125,12 +124,12 @@ def test_texture_param_gradients_flow():
         fd_check(params, skeleton, cfg, ids, target, key, "tex_color_a", 0)
 
 
-def test_train_step_reduces_loss():
-    params, skeleton, cfg, ids, key = setup()
+def test_train_step_reduces_loss(scenes):
+    params, skeleton, cfg, ids, key = setup(scenes)
     # target: the same scene with darker albedo -> recoverable by SGD
     bright = dict(params)
     bright["mat_albedo"] = params["mat_albedo"] * 0.5
-    from simd_raytracer_tpu.ops.grad import render_ids
+    from simd_raytracer.ops.grad import render_ids
     target = render_ids(merge_params(bright, skeleton), cfg, ids, key)
 
     p = params
@@ -141,16 +140,16 @@ def test_train_step_reduces_loss():
     assert losses[-1] < losses[0], losses
 
 
-def test_train_steps_matches_unrolled_single_steps():
+def test_train_steps_matches_unrolled_single_steps(scenes):
     # The pipelined scan (one executable, donated params) must walk the
     # exact same optimization trajectory as n composed single steps fed
     # the same per-step keys.
-    from simd_raytracer_tpu.ops.grad import train_steps
+    from simd_raytracer.ops.grad import train_steps
 
-    params, skeleton, cfg, ids, key = setup()
+    params, skeleton, cfg, ids, key = setup(scenes)
     bright = dict(params)
     bright["mat_albedo"] = params["mat_albedo"] * 0.5
-    from simd_raytracer_tpu.ops.grad import render_ids
+    from simd_raytracer.ops.grad import render_ids
     target = render_ids(merge_params(bright, skeleton), cfg, ids, key)
 
     n_steps = 3

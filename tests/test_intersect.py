@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from simd_raytracer_tpu.ops.intersect import mt_refine, mt_select
+from simd_raytracer.ops.intersect import mt_refine, mt_select
 
 EPS = 1e-6
 

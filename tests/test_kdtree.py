@@ -7,13 +7,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from conftest import SCENES
-from simd_raytracer_tpu import RenderConfig, parse_scene_file, render_frame
-from simd_raytracer_tpu.accel.build import (build_kdtree_for_scene,
-                                            triangle_aabbs)
-from simd_raytracer_tpu.accel.traverse import kd_select
-from simd_raytracer_tpu.models.scene import derive_geometry
-from simd_raytracer_tpu.ops.intersect import mt_select
+from simd_raytracer import RenderConfig, parse_scene_file, render_frame
+from simd_raytracer.accel.build import (build_kdtree_for_scene,
+                                        triangle_aabbs)
+from simd_raytracer.accel.traverse import kd_select
+from simd_raytracer.models.scene import derive_geometry
+from simd_raytracer.ops.intersect import mt_select
 
 
 def _rand_rays(scene, n, seed=0):
@@ -25,8 +24,8 @@ def _rand_rays(scene, n, seed=0):
     return jnp.asarray(o), jnp.asarray(d)
 
 
-def test_build_invariants():
-    scene = parse_scene_file(str(SCENES / "hw11/scene8.crtscene"))
+def test_build_invariants(scenes):
+    scene = parse_scene_file(str(scenes / "dragon_glass.crtscene"))
     tree = build_kdtree_for_scene(scene, use_native=False)
     child0 = np.asarray(tree.child0)
     child1 = np.asarray(tree.child1)
@@ -60,11 +59,10 @@ def test_build_invariants():
         assert (tri_min[tris] <= node_max[n] + 1e-6).all()
 
 
-@pytest.mark.parametrize("rel", ["hw11/scene8.crtscene",
-                                 "hw15/scene2.crtscene"])
+@pytest.mark.parametrize("name", ["dragon_glass", "room"])
 @pytest.mark.parametrize("cull", [True, False])
-def test_kd_select_matches_brute_force(rel, cull):
-    scene = parse_scene_file(str(SCENES / rel))
+def test_kd_select_matches_brute_force(scenes, name, cull):
+    scene = parse_scene_file(str(scenes / f"{name}.crtscene"))
     geom = derive_geometry(scene)
     tree = build_kdtree_for_scene(scene, use_native=False)
     o, d = _rand_rays(scene, 256)
@@ -79,10 +77,10 @@ def test_kd_select_matches_brute_force(rel, cull):
     assert (bi[bh] == ki[bh]).all()
 
 
-def test_kd_select_respects_tri_mask():
+def test_kd_select_respects_tri_mask(scenes):
     # Occlusion queries mask transmissive triangles (shade.occluded); the
     # kd backend must honor the same mask.
-    scene = parse_scene_file(str(SCENES / "hw15/scene2.crtscene"))
+    scene = parse_scene_file(str(scenes / "room.crtscene"))
     geom = derive_geometry(scene)
     tree = build_kdtree_for_scene(scene, use_native=False)
     o, d = _rand_rays(scene, 128, seed=5)
@@ -98,8 +96,8 @@ def test_kd_select_respects_tri_mask():
             == np.asarray(ki)[np.asarray(bh)]).all()
 
 
-def test_kdtree_render_equals_brute_force():
-    scene = parse_scene_file(str(SCENES / "hw11/scene1.crtscene")).replace(
+def test_kdtree_render_equals_brute_force(scenes):
+    scene = parse_scene_file(str(scenes / "mixed.crtscene")).replace(
         height=18, width=24)
     cfg_b = RenderConfig(chunk_size=512, max_ray_depth=3)
     cfg_k = RenderConfig(chunk_size=512, max_ray_depth=3,

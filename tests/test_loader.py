@@ -3,12 +3,11 @@
 import numpy as np
 import pytest
 
-from simd_raytracer_tpu import parse_scene_dict, parse_scene_file
-from simd_raytracer_tpu.models.scene import (MAT_CONSTANT, MAT_DIFFUSE,
-                                             MAT_REFLECTIVE, MAT_REFRACTIVE,
-                                             MAT_TEXTURE, TEX_BITMAP)
+from simd_raytracer import parse_scene_dict, parse_scene_file
+from simd_raytracer.models.scene import (MAT_CONSTANT, MAT_DIFFUSE,
+                                         MAT_REFLECTIVE, MAT_REFRACTIVE,
+                                         MAT_TEXTURE, TEX_BITMAP)
 
-from conftest import SCENES
 
 
 def minimal_doc(**overrides):
@@ -28,8 +27,8 @@ def minimal_doc(**overrides):
     return doc
 
 
-def test_hw15_scene2_counts():
-    s = parse_scene_file(str(SCENES / "hw15/scene2.crtscene"))
+def test_hw15_scene2_counts(scenes):
+    s = parse_scene_file(str(scenes / "room.crtscene"))
     assert int(s.tri_valid.sum()) == 2012
     assert s.height == 1920 and s.width == 1920
     assert s.bucket_size == 24
@@ -87,8 +86,8 @@ def test_malformed_raises():
         parse_scene_dict(doc)
 
 
-def test_bitmap_texture_atlas():
-    s = parse_scene_file(str(SCENES / "hw12/scene4.crtscene"))
+def test_bitmap_texture_atlas(scenes):
+    s = parse_scene_file(str(scenes / "textures.crtscene"))
     tags = np.asarray(s.tex_tag)
     assert TEX_BITMAP in tags
     bi = int(np.where(tags == TEX_BITMAP)[0][0])
@@ -105,7 +104,7 @@ def test_bitmap_texture_atlas():
 def test_vertex_normal_computation():
     # Two triangles sharing an edge: shared vertices average face normals
     # (mesh.hpp:33-43).
-    from simd_raytracer_tpu.models.scene import derive_geometry
+    from simd_raytracer.models.scene import derive_geometry
     doc = minimal_doc()
     doc["objects"][0]["vertices"] = [
         0, 0, 0, 1, 0, 0, 0, 0, -1,   # tri 0 in y=0 plane, normal +y

@@ -14,13 +14,13 @@ import jax.numpy as jnp
 import numpy as np
 
 import oracle
-from simd_raytracer_tpu import RenderConfig, parse_scene_file
-from simd_raytracer_tpu.models.scene import derive_geometry
-from simd_raytracer_tpu.ops.shade import occluded
+from simd_raytracer import RenderConfig, parse_scene_file
+from simd_raytracer.models.scene import derive_geometry
+from simd_raytracer.ops.shade import occluded
 
 
-def test_march_matches_oracle_on_glass_scene():
-    scene = parse_scene_file("/root/reference/scenes/hw11/scene2.crtscene")
+def test_march_matches_oracle_on_glass_scene(scenes):
+    scene = parse_scene_file(str(scenes / "glass.crtscene"))
     ns = oracle.NumpyScene(scene)
     geom = derive_geometry(scene)
     cfg = RenderConfig(occlusion_mode="march", intersector="jnp")

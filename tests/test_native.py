@@ -9,8 +9,7 @@ Python fallbacks).  Skipped when the shared library isn't built.
 import numpy as np
 import pytest
 
-from conftest import SCENES
-from simd_raytracer_tpu import native as native_mod
+from simd_raytracer import native as native_mod
 
 
 def _ensure_lib():
@@ -19,15 +18,15 @@ def _ensure_lib():
             pytest.skip("native toolchain unavailable")
 
 
-def test_native_kdtree_matches_numpy():
+def test_native_kdtree_matches_numpy(scenes):
     _ensure_lib()
-    from simd_raytracer_tpu import parse_scene_file
-    from simd_raytracer_tpu.accel.build import (build_kdtree,
-                                                triangle_aabbs)
-    from simd_raytracer_tpu.native import native_build_kdtree
+    from simd_raytracer import parse_scene_file
+    from simd_raytracer.accel.build import (build_kdtree,
+                                            triangle_aabbs)
+    from simd_raytracer.native import native_build_kdtree
 
-    for rel in ("hw11/scene8.crtscene", "hw15/scene2.crtscene"):
-        scene = parse_scene_file(str(SCENES / rel))
+    for rel in ("dragon_glass.crtscene", "room.crtscene"):
+        scene = parse_scene_file(str(scenes / rel))
         tri_min, tri_max = triangle_aabbs(np.asarray(scene.vertices),
                                           np.asarray(scene.tri_vidx))
         valid = np.asarray(scene.tri_valid)
@@ -42,15 +41,15 @@ def test_native_kdtree_matches_numpy():
             assert np.array_equal(a, b), (rel, field)
 
 
-def test_native_loader_matches_python():
+def test_native_loader_matches_python(scenes):
     _ensure_lib()
-    from simd_raytracer_tpu import parse_scene_file
+    from simd_raytracer import parse_scene_file
     import jax
 
-    for rel in ("hw11/scene8.crtscene", "hw12/scene4.crtscene",
-                "hw15/scene2.crtscene"):
-        py = parse_scene_file(str(SCENES / rel), use_native=False)
-        cc = parse_scene_file(str(SCENES / rel), use_native=True)
+    for rel in ("dragon_glass.crtscene", "textures.crtscene",
+                "room.crtscene"):
+        py = parse_scene_file(str(scenes / rel), use_native=False)
+        cc = parse_scene_file(str(scenes / rel), use_native=True)
         leaves_py, treedef_py = jax.tree_util.tree_flatten(py)
         leaves_cc, treedef_cc = jax.tree_util.tree_flatten(cc)
         assert treedef_py == treedef_cc
@@ -62,7 +61,7 @@ def test_native_loader_matches_python():
 
 def test_native_loader_error_on_malformed(tmp_path):
     _ensure_lib()
-    from simd_raytracer_tpu import parse_scene_file
+    from simd_raytracer import parse_scene_file
 
     bad = tmp_path / "bad.crtscene"
     bad.write_text('{"settings": {"image_settings": {"height": 4}}}')
@@ -72,8 +71,8 @@ def test_native_loader_error_on_malformed(tmp_path):
 
 def test_native_ppm_matches_python():
     _ensure_lib()
-    from simd_raytracer_tpu.native import native_ppm_encode
-    from simd_raytracer_tpu.utils.ppm import ppm_bytes
+    from simd_raytracer.native import native_ppm_encode
+    from simd_raytracer.utils.ppm import ppm_bytes
 
     rng = np.random.default_rng(3)
     img = rng.uniform(-0.2, 1.2, size=(17, 23, 3)).astype(np.float32)

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from simd_raytracer_tpu.utils.ppm import image_to_u8, ppm_bytes, read_ppm
+from simd_raytracer.utils.ppm import image_to_u8, ppm_bytes, read_ppm
 
 
 def test_exact_format():
@@ -24,7 +24,7 @@ def test_roundtrip(tmp_path):
     img = rng.random((5, 7, 3)).astype(np.float32)
     p = tmp_path / "x.ppm"
     with open(p, "w") as f:
-        from simd_raytracer_tpu.utils.ppm import write_ppm
+        from simd_raytracer.utils.ppm import write_ppm
         write_ppm(img, f)
     back = read_ppm(str(p))
     assert (back == image_to_u8(img)).all()

@@ -3,14 +3,13 @@
 import jax.numpy as jnp
 import numpy as np
 
-from conftest import SCENES
-from simd_raytracer_tpu import RenderConfig, parse_scene_file
-from simd_raytracer_tpu.utils.profiling import (PhaseTimer,
-                                                wavefront_occupancy)
+from simd_raytracer import RenderConfig, parse_scene_file
+from simd_raytracer.utils.profiling import (PhaseTimer,
+                                            wavefront_occupancy)
 
 
-def test_occupancy_counts_decay():
-    scene = parse_scene_file(str(SCENES / "hw11/scene2.crtscene")).replace(
+def test_occupancy_counts_decay(scenes):
+    scene = parse_scene_file(str(scenes / "glass.crtscene")).replace(
         height=16, width=20)
     cfg = RenderConfig(chunk_size=320, bounce_mode="roulette")
     ids = jnp.arange(320, dtype=jnp.int32)

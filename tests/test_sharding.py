@@ -6,33 +6,32 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from conftest import SCENES
-from simd_raytracer_tpu import RenderConfig, parse_scene_file, render_frame
-from simd_raytracer_tpu.ops.grad import split_params
-from simd_raytracer_tpu.parallel.sharding import (make_mesh,
-                                                  render_frame_sharded,
-                                                  train_step_sharded)
+from simd_raytracer import RenderConfig, parse_scene_file, render_frame
+from simd_raytracer.ops.grad import split_params
+from simd_raytracer.parallel.sharding import (make_mesh,
+                                              render_frame_sharded,
+                                              train_step_sharded)
 
 
 def test_eight_virtual_devices():
     assert len(jax.devices()) >= 8
 
 
-def test_sharded_render_matches_single_device():
-    scene = parse_scene_file(str(SCENES / "hw11/scene1.crtscene")).replace(
+def test_sharded_render_matches_single_device(scenes):
+    scene = parse_scene_file(str(scenes / "mixed.crtscene")).replace(
         height=16, width=24)
     cfg = RenderConfig(chunk_size=64, max_ray_depth=3)
     ref = np.asarray(render_frame(scene, cfg))
     mesh = make_mesh(8)
     got = np.asarray(render_frame_sharded(scene, cfg, mesh))
     # Sharding must not change the image (determinism across shardings —
-    # the TPU analog of the reference's disjoint-tile race freedom,
+    # the analog of the reference's disjoint-tile race freedom,
     # SURVEY.md §5 race detection).
     assert np.allclose(ref, got, atol=1e-6), np.abs(ref - got).max()
 
 
-def test_sharded_render_various_mesh_sizes():
-    scene = parse_scene_file(str(SCENES / "hw11/scene0.crtscene")).replace(
+def test_sharded_render_various_mesh_sizes(scenes):
+    scene = parse_scene_file(str(scenes / "diffuse_room.crtscene")).replace(
         height=8, width=8)
     cfg = RenderConfig(chunk_size=16, max_ray_depth=2)
     imgs = []
@@ -43,8 +42,8 @@ def test_sharded_render_various_mesh_sizes():
         assert np.allclose(imgs[0], im, atol=1e-6)
 
 
-def test_sharded_train_step_runs_and_agrees():
-    scene = parse_scene_file(str(SCENES / "hw11/scene0.crtscene")).replace(
+def test_sharded_train_step_runs_and_agrees(scenes):
+    scene = parse_scene_file(str(scenes / "diffuse_room.crtscene")).replace(
         height=8, width=8)
     cfg = RenderConfig(chunk_size=8, max_ray_depth=2)
     params, skeleton = split_params(scene)

@@ -4,15 +4,14 @@ rendering (SURVEY.md §5 checkpoint/resume)."""
 import numpy as np
 import pytest
 
-from conftest import SCENES
-from simd_raytracer_tpu import RenderConfig, parse_scene_file, render_frame
-from simd_raytracer_tpu.parallel.tiles import (RenderTile, SchedulingType,
-                                               bucket_schedule,
-                                               make_schedule,
-                                               region_schedule,
-                                               single_schedule,
-                                               schedule_to_chunks,
-                                               tile_ray_ids)
+from simd_raytracer import RenderConfig, parse_scene_file, render_frame
+from simd_raytracer.parallel.tiles import (RenderTile, SchedulingType,
+                                           bucket_schedule,
+                                           make_schedule,
+                                           region_schedule,
+                                           single_schedule,
+                                           schedule_to_chunks,
+                                           tile_ray_ids)
 
 
 def test_single_schedule_is_whole_image():
@@ -55,8 +54,8 @@ def test_tile_ray_ids_match_convention():
     assert ids.tolist() == [20, 21, 22, 23]
 
 
-def test_bucket_render_matches_linear():
-    scene = parse_scene_file(str(SCENES / "hw11/scene1.crtscene")).replace(
+def test_bucket_render_matches_linear(scenes):
+    scene = parse_scene_file(str(scenes / "mixed.crtscene")).replace(
         height=16, width=20)
     cfg = RenderConfig(chunk_size=128, max_ray_depth=2)
     a = np.asarray(render_frame(scene, cfg))
@@ -65,10 +64,10 @@ def test_bucket_render_matches_linear():
     assert np.array_equal(a, b)     # spp=1 is jitter-free -> identical
 
 
-def test_progressive_checkpoint_resume(tmp_path):
-    from simd_raytracer_tpu.utils.checkpoint import render_progressive
+def test_progressive_checkpoint_resume(scenes, tmp_path):
+    from simd_raytracer.utils.checkpoint import render_progressive
 
-    scene = parse_scene_file(str(SCENES / "hw11/scene1.crtscene")).replace(
+    scene = parse_scene_file(str(scenes / "mixed.crtscene")).replace(
         height=10, width=12)
     cfg = RenderConfig(chunk_size=256, max_ray_depth=2,
                        samples_per_pixel=1)
